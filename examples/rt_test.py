@@ -13,7 +13,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 '..'))
 
-from yulio_raytracer_tpu.api import session as rt  # noqa: E402
+from yulio_raytracer.api import session as rt  # noqa: E402
 
 
 def main():

@@ -6,7 +6,7 @@
  *
  * Usage: rt_test_host <scene.dae> <libyuliort.so path> [size] [spp]
  * (PYTHONPATH must include the repo root; set YRT_FORCE_CPU=1 to test
- * without a TPU.)
+ * without a GPU.)
  */
 #include <dlfcn.h>
 #include <stdio.h>

@@ -1,4 +1,4 @@
-// Native binned-SAH BVH builder for yulio_raytracer_tpu.
+// Native binned-SAH BVH builder for yulio_raytracer.
 //
 // Replaces the role of Embree's rtcCommit BVH build (the reference's only
 // native acceleration-structure component) for large scenes where the
@@ -185,12 +185,9 @@ struct Builder {
 //
 // Parity target: the reference commits every scene with
 // RTC_SCENE_HIGH_QUALITY | RTC_SCENE_ROBUST (scene_flat.h:90-96), which in
-// Embree enables SBVH-style spatial splits.  On the TPU traversal this
-// matters MORE than on a CPU: the packet kernel charges every ray its
-// 1024-ray packet's *union* of visited leaves, and the union multiplier is
-// a direct function of node/leaf overlap — exactly what spatial splits
-// reduce on architectural scenes (round-3 measured 16.6k pair tests/ray on
-// bounce-1 vs ~100 for an 8-wide CPU packet).
+// Embree enables SBVH-style spatial splits: they cut node/leaf overlap on
+// architectural scenes, so fewer nodes and leaves are visited per ray, at
+// the price of duplicated triangle references.
 //
 // Differences from the object-split builder above:
 //  * a triangle REFERENCE (tri id + clipped AABB) is the unit of work;
@@ -272,12 +269,8 @@ struct SBuilder {
   int nbins;
   float alpha;          // overlap/root-area threshold to try spatial
   bool enable_spatial;  // try spatial-split candidates at all
-  bool align_rows;      // pad each leaf to an 8-triangle row boundary:
-                        // the TPU packet kernel tests whole packed rows,
-                        // so an unaligned leaf of n tris touches
-                        // (start%8 + n + 7)/8 rows instead of ceil(n/8)
-                        // — measured ~0.9 wasted boundary rows per leaf
-                        // visit at leaf 32
+  bool align_rows;      // pad each leaf start to a multiple of 8
+                        // triangles (invalid padding triangles)
   float c_trav;         // SAH termination: interior-visit cost in packed-
                         // row units (<0: always split down to leaf_size).
                         // With it, a node below the cap stays a leaf when

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.geometry import mesh, bvh, primitives
-from yulio_raytracer_tpu.ops import intersect, traverse
+from yulio_raytracer.geometry import mesh, bvh, primitives
+from yulio_raytracer.ops import intersect, traverse
 
 
 def _scene(seed=0, num_meshes=6):
@@ -120,7 +120,7 @@ def test_bvh_big_leaf_sizes():
 
 
 def test_native_builder_matches_numpy():
-    from yulio_raytracer_tpu.geometry import bvh as gb
+    from yulio_raytracer.geometry import bvh as gb
     packed = _scene(7)
     nat = gb.build_native(packed.v0, packed.e1, packed.e2, packed.valid,
                           leaf_size=8)
@@ -154,7 +154,7 @@ def test_native_builder_matches_numpy():
 
 
 def test_native_builder_speed():
-    from yulio_raytracer_tpu.geometry import bvh as gb
+    from yulio_raytracer.geometry import bvh as gb
     import time
     if gb._load_native() is None:
         import pytest

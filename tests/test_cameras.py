@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.cameras import cameras as cam
-from yulio_raytracer_tpu.core import math as vm
+from yulio_raytracer.cameras import cameras as cam
+from yulio_raytracer.core import math as vm
 
 
 def _center_pixel():

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.core import math as vm
+from yulio_raytracer.core import math as vm
 
 
 def test_normalize_and_dot():

@@ -3,10 +3,10 @@ import os
 
 import numpy as np
 
-from yulio_raytracer_tpu.api import display
-from yulio_raytracer_tpu.io import builtin_scenes
-from yulio_raytracer_tpu.integrator import pathtracer as pt
-from yulio_raytracer_tpu.film import accum
+from yulio_raytracer.api import display
+from yulio_raytracer.io import builtin_scenes
+from yulio_raytracer.integrator import pathtracer as pt
+from yulio_raytracer.film import accum
 
 
 def test_display_loop_refines_and_reacts(tmp_path):

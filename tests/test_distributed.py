@@ -19,15 +19,15 @@ sys.path.insert(0, %(repo)r)
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import jax
 jax.config.update("jax_platforms", "cpu")
-from yulio_raytracer_tpu.parallel import sharding
+from yulio_raytracer.parallel import sharding
 
 pid = int(sys.argv[1])
 sharding.init_distributed(%(coord)r, num_processes=2, process_id=pid)
 assert jax.process_count() == 2, jax.process_count()
 assert jax.device_count() == 4, jax.device_count()
 
-from yulio_raytracer_tpu.io import builtin_scenes
-from yulio_raytracer_tpu.integrator import pathtracer as pt
+from yulio_raytracer.io import builtin_scenes
+from yulio_raytracer.integrator import pathtracer as pt
 
 scene = builtin_scenes.cornell_box(with_boxes=False).commit()
 cam = builtin_scenes.cornell_camera(16, 16)
@@ -57,8 +57,8 @@ def test_import_does_not_initialize_backend():
         "import jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
         "from jax._src import xla_bridge\n"
-        "from yulio_raytracer_tpu.parallel import sharding\n"
-        "from yulio_raytracer_tpu.api import output, session, cli\n"
+        "from yulio_raytracer.parallel import sharding\n"
+        "from yulio_raytracer.api import output, session, cli\n"
         "assert not xla_bridge._backends, "
         "'package import initialized the XLA backend'\n"
     )
@@ -90,9 +90,9 @@ def test_two_process_distributed_render(tmp_path):
 
     # reference: the same step on this process's local (8-device) mesh —
     # sharded renders agree across device counts to float association
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu.parallel import sharding
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer.parallel import sharding
 
     scene = builtin_scenes.cornell_box(with_boxes=False).commit()
     cam = builtin_scenes.cornell_camera(16, 16)

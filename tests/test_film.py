@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.film import accum, tonemap
+from yulio_raytracer.film import accum, tonemap
 
 
 def test_accumulate_and_resolve():
@@ -52,9 +52,9 @@ def test_to_srgb_u8():
 
 
 def test_render_progressive_checkpoint_resume(tmp_path):
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu import renderer
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer import renderer
     scene = builtin_scenes.cornell_box(with_boxes=False).commit()
     cam = builtin_scenes.cornell_camera(16, 16)
     params = pt.PTParams(max_depth=2)

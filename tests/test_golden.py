@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from yulio_raytracer_tpu.io import builtin_scenes
-from yulio_raytracer_tpu.integrator import pathtracer as pt
-from yulio_raytracer_tpu import renderer
-from yulio_raytracer_tpu.film import accum
+from yulio_raytracer.io import builtin_scenes
+from yulio_raytracer.integrator import pathtracer as pt
+from yulio_raytracer import renderer
+from yulio_raytracer.film import accum
 
 GOLDEN = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'assets', 'golden', 'cornell_64_cpu.npz')
@@ -35,7 +35,7 @@ def test_cornell_matches_pinned_golden():
 def test_stereo_camera_matches_pinned_golden():
     """StereoCube ray-generation golden (traced face index, eye offset,
     vertical falloff, head rotation): pins the one-graph-for-12-faces
-    camera path; bench.py renders the same config on TPU."""
+    camera path; chip_smoke.py renders the same config on the GPU."""
     scene = builtin_scenes.cornell_box().commit()
     cam = builtin_scenes.cornell_stereo_camera(64, 64)
     film, _ = renderer.render_frame(scene, cam, pt.PTParams(max_depth=2),
@@ -51,7 +51,7 @@ def test_sphere_glass_matches_pinned_golden_fast():
     pins refraction, Beer-law media and texture filtering.  Fast tier:
     32^2 spp 8 depth 6 (~1/20 the full golden's work on this 1-core
     box); the full 64^2 config stays behind -m slow and doubles as
-    bench.py's on-TPU dielectric parity gate."""
+    chip_smoke.py's on-GPU dielectric parity gate."""
     scene = builtin_scenes.sphere_glass().commit()
     cam = builtin_scenes.sphere_glass_camera(32, 32)
     film, _ = renderer.render_frame(scene, cam, pt.PTParams(max_depth=6),
@@ -64,8 +64,8 @@ def test_sphere_glass_matches_pinned_golden_fast():
 
 @pytest.mark.slow
 def test_sphere_glass_matches_pinned_golden():
-    """Full-size dielectric golden (the config bench.py renders on TPU
-    for the >= 40 dB hardware-parity gate)."""
+    """Full-size dielectric golden (the config chip_smoke.py renders on
+    the GPU for the >= 40 dB hardware-parity gate)."""
     scene = builtin_scenes.sphere_glass().commit()
     cam = builtin_scenes.sphere_glass_camera(64, 64)
     film, _ = renderer.render_frame(scene, cam, pt.PTParams(max_depth=8),
@@ -96,23 +96,6 @@ def test_sample_major_batching_matches_per_sample():
     a = np.asarray(accum.resolve(base))
     b = np.asarray(accum.resolve(batched))
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
-
-
-def test_bvh4_accel_matches_default_render():
-    """commit(accel='bvh4') routes traversal through the wide-node
-    packet kernel (ops/pallas_wide.py); same tree, same hits — the
-    full render must match the binary-kernel default (the Embree
-    BVH4-vs-BVH2 equivalence behind the .ecs -accel flag)."""
-    cam = builtin_scenes.cornell_camera(32, 32)
-    p = pt.PTParams(max_depth=3)
-    s2 = builtin_scenes.cornell_box().commit(force_bvh=True, accel='bvh2')
-    s4 = builtin_scenes.cornell_box().commit(force_bvh=True, accel='bvh4')
-    assert 'nodes4' not in s2.packet and 'nodes4' in s4.packet
-    a, _ = renderer.render_frame(s2, cam, p, 32, 32, spp=4, seed=9)
-    b, _ = renderer.render_frame(s4, cam, p, 32, 32, spp=4, seed=9)
-    np.testing.assert_allclose(np.asarray(accum.resolve(a)),
-                               np.asarray(accum.resolve(b)),
-                               rtol=1e-5, atol=1e-6)
 
 
 def test_different_seed_converges_to_same_image():

@@ -1,15 +1,15 @@
 import numpy as np
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.scene import SceneBuilder
-from yulio_raytracer_tpu.geometry.mesh import HostMesh
-from yulio_raytracer_tpu.shading import materials as gmat
-from yulio_raytracer_tpu.lights import lights as glights
-from yulio_raytracer_tpu.integrator import pathtracer as pt
-from yulio_raytracer_tpu.cameras import cameras as cam
-from yulio_raytracer_tpu.io import builtin_scenes
-from yulio_raytracer_tpu import renderer
-from yulio_raytracer_tpu.film import accum
+from yulio_raytracer.scene import SceneBuilder
+from yulio_raytracer.geometry.mesh import HostMesh
+from yulio_raytracer.shading import materials as gmat
+from yulio_raytracer.lights import lights as glights
+from yulio_raytracer.integrator import pathtracer as pt
+from yulio_raytracer.cameras import cameras as cam
+from yulio_raytracer.io import builtin_scenes
+from yulio_raytracer import renderer
+from yulio_raytracer.film import accum
 
 
 def _floor(material, size=1000.0, y=0.0):
@@ -198,15 +198,15 @@ def test_cornell_box_smoke():
 
 def test_compacted_driver_matches_scan():
     """trace_compacted (host-driven per-bounce dispatch with live-ray
-    compaction, VERDICT r4 next #1) is BIT-identical to the lax.scan
+    compaction) is BIT-identical to the lax.scan
     trace(): compaction only ever drops dead lanes, whose L is already
     final, and per-lane math is order-independent.  Also checks the
     per-bounce stats stream (live counts must be non-increasing and the
     RR cliff at rr_depth must show)."""
     import numpy as np
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu import renderer
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer import renderer
 
     scene = builtin_scenes.cornell_box().commit(force_bvh=True)
     cam = builtin_scenes.cornell_camera(32, 32)
@@ -234,9 +234,9 @@ def test_compacted_driver_precomputed_sampler():
     """The precomputed-sampler tables ride the compacted state (per-ray
     set/sidx picks are gathered with the wavefront)."""
     import numpy as np
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu import renderer
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer import renderer
 
     scene = builtin_scenes.cornell_box().commit(force_bvh=True)
     cam = builtin_scenes.cornell_camera(24, 24)
@@ -257,9 +257,9 @@ def test_compaction_auto_gate():
     agree bit-exactly with 'off'."""
     import numpy as np
     import pytest
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu import renderer
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer import renderer
 
     scene = builtin_scenes.cornell_box().commit(force_bvh=True)
     cam = builtin_scenes.cornell_camera(16, 16)
@@ -282,75 +282,80 @@ def test_compaction_auto_gate():
 
 
 def test_pass_budget_watchdog_math():
-    """Every public binning mode gets a watchdog-safe, BLOCK-aligned
-    per-pass ray budget (VERDICT r4 next #3: ray_binning='none' used to
-    inherit the sorted budget and crash the TPU worker)."""
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu.renderer import _pass_budget
+    """Pass budgets come from device memory: the BVH path probes the
+    bounce step's compiled footprint against free device memory and
+    halves until it fits; backends without memory statistics take the
+    frame's own width (capped at _MAX_PASS_RAYS); the dense path bounds
+    rays x triangle-block temporaries."""
+    import types
+    from yulio_raytracer import renderer
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
 
     scene = builtin_scenes.cornell_box().commit(force_bvh=True)
-    budgets = {}
-    for binning in ('morton', 'grid', 'treelet', 'dense', 'none'):
-        for depth in (1, 4, 10):
-            for n_px in (1, 8):
-                b, cap = _pass_budget(
-                    scene, pt.PTParams(max_depth=depth,
-                                       ray_binning=binning), n_px)
-                assert b % (1024 * n_px) == 0, (binning, depth, n_px)
-                assert cap == 1
-                budgets[(binning, depth, n_px)] = b
-    # unsorted packets traverse ~4-8x slower: the budget must shrink
-    assert budgets[('none', 4, 1)] <= budgets[('morton', 4, 1)] // 4
-    assert budgets[('none', 10, 1)] <= budgets[('morton', 10, 1)]
-    # compacted driver (one bounce per dispatch): the whole-scan depth
-    # divisor no longer applies — budget is the single-bounce bound,
-    # still BLOCK-aligned, still 1/8-derated for unsorted packets
-    for binning in ('morton', 'none'):
-        for depth in (6, 10):
-            b, cap = _pass_budget(
-                scene, pt.PTParams(max_depth=depth, ray_binning=binning),
-                1, compacted=True)
-            assert cap == 1 and b % 1024 == 0
-            budgets[('compact', binning, depth)] = b
-    assert budgets[('compact', 'morton', 10)] == 1 << 22
-    assert budgets[('compact', 'none', 10)] \
-        <= budgets[('compact', 'morton', 10)] // 4
-    # a production 1536^2 face (2.36M px) must fit one compacted chunk
-    assert budgets[('compact', 'morton', 10)] >= 1536 * 1536
-    # dense (no-BVH) path budget is memory-bound AND pair-count-bound:
-    # rays x tris per pass stays under 2^32 no matter the scene size
-    # (benchmark.py dense mode on a 238k-tri scene queued 2.3e10-pair
-    # passes and crashed the worker, r5)
-    small = builtin_scenes.cornell_box().commit(force_bvh=False)
-    b, cap = _pass_budget(small, pt.PTParams(), 1)
-    assert cap is None and b > 0
-    import types
-    for tris in (4992, 86528, 238208, 3800000):
+    p = pt.PTParams(max_depth=10)
+    npix = 1536 * 1536
+    # no memory statistics (the CPU): the frame's width, one pass
+    b, cap = renderer._pass_budget(scene, p, 1, npix)
+    assert (b, cap) == (npix, 1)
+    b, cap = renderer._pass_budget(scene, p, 8, 8 * npix)
+    assert (b, cap) == (8 * npix, 1)
+    b, cap = renderer._pass_budget(scene, p, 1, 256 * npix)
+    assert b == renderer._MAX_PASS_RAYS
+    # with statistics: halve until bounce_bytes fits the memory share
+    per_ray = 4096
+    saved = (renderer._free_device_bytes, pt.bounce_bytes)
+    try:
+        renderer._budget_cache.clear()
+        renderer._free_device_bytes = lambda: 3 << 30
+        pt.bounce_bytes = lambda scene, params, w: w * per_ray
+        b, cap = renderer._pass_budget(scene, p, 1, npix)
+        assert cap == 1
+        assert b * per_ray <= renderer._PASS_MEMORY_SHARE * (3 << 30)
+        assert 2 * b * per_ray > renderer._PASS_MEMORY_SHARE * (3 << 30)
+        # a device with room for the whole frame runs it in one pass
+        renderer._free_device_bytes = lambda: 1 << 40
+        assert renderer._pass_budget(scene, p, 1, npix)[0] == npix
+        # never below _MIN_PASS_RAYS
+        renderer._free_device_bytes = lambda: 1 << 20
+        b = renderer._pass_budget(scene, p, 1, npix)[0]
+        assert renderer._MIN_PASS_RAYS <= b < 2 * renderer._MIN_PASS_RAYS
+    finally:
+        renderer._free_device_bytes, pt.bounce_bytes = saved
+        renderer._budget_cache.clear()
+    # dense (no-BVH) path: rays x triangle-block temporaries bounded
+    for tris in (128, 4992, 238208):
         fake = types.SimpleNamespace(bvh=None, num_triangles=tris)
-        b, cap = _pass_budget(fake, pt.PTParams(), 1)
-        assert cap is None
-        # pair bound (watchdog) AND packet-BLOCK alignment (a
-        # non-multiple pass falls back to the ~100x XLA gather path)
-        assert b * tris <= (1 << 32) or b == 1024, (tris, b)
-        assert b % 1024 == 0, (tris, b)
+        b, cap = renderer._pass_budget(fake, p, 1, npix)
+        assert cap is None and b >= 1 << 14
+        assert b * min(tris, 2048) <= 3 << 26 or b == 1 << 14
+
+
+def test_bounce_memory_analysis():
+    """bounce_bytes reads the compiled bounce step's memory analysis and
+    grows with the wavefront width."""
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+
+    scene = builtin_scenes.cornell_box().commit(force_bvh=True)
+    p = pt.PTParams(max_depth=3)
+    small = pt.bounce_bytes(scene, p, 256)
+    big = pt.bounce_bytes(scene, p, 1024)
+    assert 0 < small < big
 
 
 def test_compact_widths_math():
-    """Bucket widths: descending, BLOCK-aligned (so _use_packet keeps
-    the Pallas kernels engaged at every width), include the full width,
-    and every bucket >= its divisor share of r."""
-    from yulio_raytracer_tpu.integrator.pathtracer import compact_widths
+    """Bucket widths: descending, include the full width, ceil(r/d) per
+    divisor (no alignment: the GPU kernel takes any ray count)."""
+    from yulio_raytracer.integrator.pathtracer import compact_widths
 
     r = 1 << 21
-    ws = compact_widths(r, divisors=(1, 4, 16), align=1024)
+    ws = compact_widths(r, divisors=(1, 4, 16))
     assert ws == sorted(ws, reverse=True)
     assert ws[0] == r
-    assert all(w % 1024 == 0 for w in ws)
     assert set(ws) == {r, r // 4, r // 16}
-    # tiny widths clamp to the alignment floor
-    assert compact_widths(2048, divisors=(1, 16), align=1024) == \
-        [2048, 1024]
+    assert compact_widths(1000, divisors=(1, 3, 16)) == [1000, 334, 63]
+    assert compact_widths(7) == [7, 2, 1]
 
 
 def test_prewarm_gating_small_wavefronts():
@@ -358,7 +363,7 @@ def test_prewarm_gating_small_wavefronts():
     (tests/tiny renders must not spawn compile threads) and must not
     touch the scene before the gate."""
     import jax.numpy as jnp
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
+    from yulio_raytracer.integrator import pathtracer as pt
 
     n_keys = len(pt._PREWARM_KEYS)
     state = {'org': jnp.zeros((1024, 3))}

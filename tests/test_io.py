@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from yulio_raytracer_tpu.io import ecs, image, obj, builtin_scenes
-from yulio_raytracer_tpu.scene import SceneBuilder
-from yulio_raytracer_tpu.shading import lobes as lb
+from yulio_raytracer.io import ecs, image, obj, builtin_scenes
+from yulio_raytracer.scene import SceneBuilder
+from yulio_raytracer.shading import lobes as lb
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'assets', 'scenes')
@@ -47,7 +47,11 @@ def test_parse_cornell_ecs():
     assert kinds == ['triangle', 'triangle']
     scene = sb.commit()
     # 5 walls * 2 + 2 boxes * 5 quads * 2 + 2 light tris = 32 live tris
-    assert int(np.asarray(scene.geom['valid']).sum()) == 32
+    # (BVH leaves may repeat a triangle as row padding: count distinct)
+    valid = np.asarray(scene.geom['valid'])
+    tris = np.concatenate([np.asarray(scene.geom[k])[valid]
+                           for k in ('v0', 'e1', 'e2')], axis=1)
+    assert len(np.unique(tris, axis=0)) == 32
 
 
 def test_obj_materials_mapped():
@@ -142,7 +146,7 @@ def test_reference_xml_scenes_load():
     ref = "/root/reference/models"
     if not os.path.isdir(ref):
         pytest.skip("reference models not present")
-    from yulio_raytracer_tpu.io import xml_scene
+    from yulio_raytracer.io import xml_scene
     ok = 0
     for fn in ('sphere_glass.xml', 'sphere_mirror.xml',
                'sphere_carpaint.xml', 'cornell_box_spheres.xml',
@@ -161,7 +165,7 @@ def test_reference_xml_scenes_load():
 def test_exr_roundtrip_zip(tmp_path):
     """HALF RGB zip round-trip through the native EXR codec
     (common/image/exr.cpp parity: scanline HALF storage)."""
-    from yulio_raytracer_tpu.io import exr
+    from yulio_raytracer.io import exr
     rs = np.random.RandomState(3)
     img = (rs.rand(37, 53, 3).astype(np.float32) * 8.0) ** 2
     p = str(tmp_path / "t.exr")
@@ -176,7 +180,7 @@ def test_exr_roundtrip_zip(tmp_path):
 
 
 def test_exr_variants(tmp_path):
-    from yulio_raytracer_tpu.io import exr
+    from yulio_raytracer.io import exr
     rs = np.random.RandomState(4)
     img = rs.rand(20, 31, 4).astype(np.float32)
     for compression in ('none', 'zips', 'zip'):
@@ -196,8 +200,8 @@ def test_exr_variants(tmp_path):
 def test_exr_hdri_in_scene(tmp_path):
     """An .exr HDRI drives an environment light end-to-end (the
     reference's common HDRI-dome workflow, exr.cpp + hdrilight.cpp)."""
-    from yulio_raytracer_tpu.io import exr
-    from yulio_raytracer_tpu.lights import lights as glights
+    from yulio_raytracer.io import exr
+    from yulio_raytracer.lights import lights as glights
     img = np.zeros((8, 16, 3), np.float32)
     img[:4] = (4.0, 2.0, 1.0)       # bright upper hemisphere
     p = str(tmp_path / "env.exr")
@@ -214,7 +218,7 @@ def test_xml_nested_include_and_tangents(tmp_path):
     """<xml src> includes under the current transform
     (xml_loader.cpp:558-561) and per-vertex tangent_x/tangent_y arrays
     (trianglemesh_full.cpp:39-47)."""
-    from yulio_raytracer_tpu.io import xml_scene
+    from yulio_raytracer.io import xml_scene
     inner = tmp_path / "inner.xml"
     inner.write_text("""<scene>
       <TriangleMesh>
@@ -246,16 +250,17 @@ def test_xml_nested_include_and_tangents(tmp_path):
     scene = sb.commit()
     tab = np.asarray(scene.geom['shade_tab'])
     valid = np.asarray(scene.geom['valid'])
-    np.testing.assert_allclose(tab[valid][:, 22:25], [[0, 0, 1]],
-                               atol=1e-5)
-    np.testing.assert_allclose(tab[valid][:, 25:28], [[0, 1, 0]],
-                               atol=1e-5)
+    # (BVH leaves may repeat the triangle as row padding)
+    np.testing.assert_allclose(np.unique(tab[valid][:, 22:25], axis=0),
+                               [[0, 0, 1]], atol=1e-5)
+    np.testing.assert_allclose(np.unique(tab[valid][:, 25:28], axis=0),
+                               [[0, 1, 0]], atol=1e-5)
 
 
 def test_xml_assign_scene_ref(tmp_path):
     """<assign type="scene"> + <ref> re-instance a named subgraph
     (xml_loader.cpp:551-553,573-577)."""
-    from yulio_raytracer_tpu.io import xml_scene
+    from yulio_raytracer.io import xml_scene
     f = tmp_path / "refs.xml"
     f.write_text("""<scene>
       <assign type="scene" id="ball">
@@ -288,12 +293,12 @@ def test_golden_scene_assets_load_and_render(ecs_name, xml_name):
     """Every golden scene asset mirrored from the reference's models/
     directory (SURVEY 2.9) parses and renders finite at thumbnail size
     through the public ECS pipeline."""
-    from yulio_raytracer_tpu.scene import SceneBuilder
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu import renderer
-    from yulio_raytracer_tpu.film import accum
-    from yulio_raytracer_tpu.cameras import cameras as cam
-    from yulio_raytracer_tpu.api import output as goutput
+    from yulio_raytracer.scene import SceneBuilder
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer import renderer
+    from yulio_raytracer.film import accum
+    from yulio_raytracer.cameras import cameras as cam
+    from yulio_raytracer.api import output as goutput
 
     if ecs_name is not None:
         settings, sb = ecs.parse_ecs(os.path.join(ASSETS, ecs_name))
@@ -306,7 +311,7 @@ def test_golden_scene_assets_load_and_render(ecs_name, xml_name):
         if xml_name == 'test_stereo.xml':
             # lit by the sky-color ambient of test_stereo_view.ecs
             # (its embedded HDRI is intentionally zero)
-            from yulio_raytracer_tpu.lights import lights as gl
+            from yulio_raytracer.lights import lights as gl
             sb.add_light(gl.ambient((0.83, 0.95, 0.98)))
     assert sb.meshes, xml_name
     scene = sb.commit(view_pos=np.asarray(settings.cam_pos, np.float64))
@@ -324,12 +329,12 @@ def test_golden_scene_assets_load_and_render(ecs_name, xml_name):
 
 
 def test_accel_flag_plumbed(tmp_path):
-    """`-accel bvh4` reaches commit(accel=...) (VERDICT r4 missing #3:
-    io/ecs.py used to discard the token); bvh4mb stays motion-only and
-    unknown values raise (ADVICE r4 scene.py validation)."""
+    """`-accel bvh4` reaches commit(accel=...) (io/ecs.py must not
+    discard the token); bvh4mb stays motion-only and unknown values
+    raise."""
     import pytest
-    from yulio_raytracer_tpu.io.ecs import TokenStream, RenderSettings
-    from yulio_raytracer_tpu.io import ecs as gecs
+    from yulio_raytracer.io.ecs import TokenStream, RenderSettings
+    from yulio_raytracer.io import ecs as gecs
 
     for tok, want in (('bvh4', 'bvh4'), ('bvh4.triangle4', 'bvh4'),
                       ('bvh4mb', 'bvh4mb'), ('default', 'default'),
@@ -343,23 +348,20 @@ def test_accel_flag_plumbed(tmp_path):
                    SceneBuilder(), str(tmp_path))
 
     # sphere_motion.ecs (the reference model's flag) parses to bvh4mb
+    # and commits: the motion geometry it demands is there
     settings, sb = ecs.parse_ecs(os.path.join(ASSETS, 'sphere_motion.ecs'))
     assert settings.accel == 'bvh4mb'
     scene = sb.commit(accel=settings.accel)
-    assert scene.accel == 'bvh4mb' and 'tris_mb' in scene.packet
-
-    # bvh4 on a static scene selects the wide table and records it
-    _, sb2 = ecs.parse_ecs(os.path.join(ASSETS, 'cornell_box.ecs'))
-    s4 = sb2.commit(force_bvh=True, accel='bvh4')
-    assert s4.accel == 'bvh4' and 'nodes4' in s4.packet
-    # 'default' auto-selects the wide table when it fits (round-5 e2e
-    # flip, scripts/bench_accel_ab.py); 'bvh2' forces the binary kernel
-    _, sb2d = ecs.parse_ecs(os.path.join(ASSETS, 'cornell_box.ecs'))
-    sd = sb2d.commit(force_bvh=True)
-    assert sd.accel == 'bvh4' and 'nodes4' in sd.packet
-    _, sb2b = ecs.parse_ecs(os.path.join(ASSETS, 'cornell_box.ecs'))
-    s2 = sb2b.commit(force_bvh=True, accel='bvh2')
-    assert s2.accel == 'bvh2' and 'nodes4' not in s2.packet
+    assert 'mv0' in scene.geom
+    # every accel name on a static scene commits the same binary BVH
+    trees = []
+    for accel in ('default', 'bvh2', 'bvh4'):
+        _, sb2 = ecs.parse_ecs(os.path.join(ASSETS, 'cornell_box.ecs'))
+        trees.append(sb2.commit(force_bvh=True, accel=accel).bvh)
+    for t in trees[1:]:
+        for k in trees[0]:
+            np.testing.assert_array_equal(np.asarray(t[k]),
+                                          np.asarray(trees[0][k]))
     # bvh4mb without motion geometry is a loud error, not a side effect
     _, sb3 = ecs.parse_ecs(os.path.join(ASSETS, 'cornell_box.ecs'))
     with pytest.raises(ValueError):

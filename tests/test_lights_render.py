@@ -2,11 +2,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.scene import SceneBuilder
-from yulio_raytracer_tpu.geometry.mesh import HostMesh
-from yulio_raytracer_tpu.shading import materials as gmat
-from yulio_raytracer_tpu.lights import lights as gl
-from yulio_raytracer_tpu.integrator import pathtracer as pt
+from yulio_raytracer.scene import SceneBuilder
+from yulio_raytracer.geometry.mesh import HostMesh
+from yulio_raytracer.shading import materials as gmat
+from yulio_raytracer.lights import lights as gl
+from yulio_raytracer.integrator import pathtracer as pt
 
 
 def _floor_scene(light, albedo=0.5):

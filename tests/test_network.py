@@ -6,11 +6,11 @@ import threading
 import numpy as np
 import pytest
 
-from yulio_raytracer_tpu.parallel import network
-from yulio_raytracer_tpu.io import builtin_scenes
-from yulio_raytracer_tpu.integrator import pathtracer as pt
-from yulio_raytracer_tpu import renderer
-from yulio_raytracer_tpu.film import accum
+from yulio_raytracer.parallel import network
+from yulio_raytracer.io import builtin_scenes
+from yulio_raytracer.integrator import pathtracer as pt
+from yulio_raytracer import renderer
+from yulio_raytracer.film import accum
 
 
 def test_active_rows_partition():
@@ -205,7 +205,7 @@ def test_cli_connect_matches_local(tmp_path):
     two full CLI renders (~90 s here); the default run keeps the
     lib-level bit-identity test + the server CLI entry test."""
     import os
-    from yulio_raytracer_tpu.api import cli
+    from yulio_raytracer.api import cli
     from PIL import Image
 
     ports = [19481, 19482]
@@ -234,8 +234,8 @@ def test_cli_connect_matches_local(tmp_path):
 def test_server_cli_entry():
     """`rt_server` standalone entry (network_server_main.cpp:99-112):
     python -m ...parallel.network -port P -single-connection."""
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
 
     port = 19483
     t = threading.Thread(
@@ -275,7 +275,7 @@ def test_stereo_over_tcp_matches_local(tmp_path):
     (view_pos in OP_RENDER).  Slow tier: 24 face renders + 2 full CLI
     invocations (~5 min cold on this box)."""
     import os
-    from yulio_raytracer_tpu.api import cli
+    from yulio_raytracer.api import cli
     from PIL import Image
 
     ecs_path = os.path.join(os.path.dirname(os.path.dirname(
@@ -311,9 +311,9 @@ def test_view_pos_recommit_matches_local():
     committed at that viewpoint, and changing view_pos changes the
     image (the server's keyed recommit)."""
     import os
-    from yulio_raytracer_tpu.io import collada, ecs
-    from yulio_raytracer_tpu.scene import SceneBuilder
-    from yulio_raytracer_tpu.cameras import cameras as cam
+    from yulio_raytracer.io import collada, ecs
+    from yulio_raytracer.scene import SceneBuilder
+    from yulio_raytracer.cameras import cameras as cam
 
     dae = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), 'assets', 'scenes', 'test_room.dae')
@@ -321,7 +321,7 @@ def test_view_pos_recommit_matches_local():
     sb = SceneBuilder()
     collada.load_dae(dae, settings, sb)
     assert sb.has_billboards()
-    from yulio_raytracer_tpu.lights import lights as gl
+    from yulio_raytracer.lights import lights as gl
     sb.add_light(gl.ambient((1.0, 1.0, 1.0)))   # light any viewpoint
 
     port = 19493

@@ -3,11 +3,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from yulio_raytracer_tpu.io import builtin_scenes
-from yulio_raytracer_tpu.integrator import pathtracer as pt
-from yulio_raytracer_tpu import renderer
-from yulio_raytracer_tpu.parallel import sharding
-from yulio_raytracer_tpu.film import accum
+from yulio_raytracer.io import builtin_scenes
+from yulio_raytracer.integrator import pathtracer as pt
+from yulio_raytracer import renderer
+from yulio_raytracer.parallel import sharding
+from yulio_raytracer.film import accum
 
 
 @pytest.fixture(scope='module')
@@ -35,7 +35,11 @@ def test_px_sharded_matches_single(scene):
 def test_tri_sharded_matches_single(scene):
     cam = builtin_scenes.cornell_camera(32, 32)
     params = pt.PTParams(max_depth=2)
-    film_ref, _ = renderer.render_frame(scene, cam, params, 32, 32, spp=2,
+    # a sharded triangle axis tests each shard's triangles directly (no
+    # BVH), so the single-device reference takes the same dense test
+    dense = builtin_scenes.cornell_box(with_boxes=False).commit(
+        force_bvh=False)
+    film_ref, _ = renderer.render_frame(dense, cam, params, 32, 32, spp=2,
                                         seed=5)
     mesh = sharding.make_mesh(8, tri_parallel=4)   # 2-way px x 4-way tri
     film_sh = sharding.render_frame_sharded(scene, cam, params, 32, 32,
@@ -68,10 +72,10 @@ def test_sharded_accumulation(scene):
 def test_sharded_render_odd_size():
     """Pixel counts that don't divide the px axis pad instead of assert
     (a 1536^2 face on a 7-healthy-device mesh must render)."""
-    from yulio_raytracer_tpu.parallel import sharding
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu.film import accum
+    from yulio_raytracer.parallel import sharding
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer.film import accum
     import numpy as np
 
     scene = builtin_scenes.cornell_box(with_boxes=False).commit()
@@ -92,10 +96,10 @@ def test_production_mesh_render_frame_bit_identical():
     mesh, ulp-tight vs single-chip (XLA associates per-shard shapes
     differently), incl. odd frame sizes needing pixel padding, and
     progress/stop plumbed."""
-    from yulio_raytracer_tpu import renderer as grenderer
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu.parallel import sharding
+    from yulio_raytracer import renderer as grenderer
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer.parallel import sharding
     import numpy as np
 
     scene = builtin_scenes.cornell_box(with_boxes=False).commit()
@@ -122,10 +126,10 @@ def test_production_mesh_render_frame_bit_identical():
 
 
 def test_production_mesh_rejects_tri_axis():
-    from yulio_raytracer_tpu import renderer as grenderer
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu.parallel import sharding
+    from yulio_raytracer import renderer as grenderer
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer.parallel import sharding
     import pytest
 
     scene = builtin_scenes.cornell_box(with_boxes=False).commit()

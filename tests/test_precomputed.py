@@ -8,7 +8,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from yulio_raytracer_tpu.sampling import precomputed as pc
+from yulio_raytracer.sampling import precomputed as pc
 
 _ORACLE_C = r"""
 /* Independent C oracle: MINSTD LCG + 32-entry Bays-Durham shuffle with
@@ -140,9 +140,9 @@ def test_tile_set_ids():
 
 
 def test_precomputed_render_deterministic():
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
-    from yulio_raytracer_tpu import renderer
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
+    from yulio_raytracer import renderer
 
     scene = builtin_scenes.cornell_box().commit()
     cam = builtin_scenes.cornell_camera(24, 24)

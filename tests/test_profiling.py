@@ -4,8 +4,8 @@ import os
 import subprocess
 import sys
 
-from yulio_raytracer_tpu.utils import profiling
-from yulio_raytracer_tpu.io import builtin_scenes
+from yulio_raytracer.utils import profiling
+from yulio_raytracer.io import builtin_scenes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -14,7 +14,7 @@ import glob, os, sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
-from yulio_raytracer_tpu.utils import profiling
+from yulio_raytracer.utils import profiling
 out = sys.argv[1]
 with profiling.trace(out):
     with profiling.annotate("tiny-matmul"):
@@ -44,7 +44,8 @@ def test_commit_stats():
     scene, st = profiling.committed_stats(sb)
     assert st.triangles == scene.num_triangles
     assert st.total_seconds > 0
-    assert st.bvh_nodes == 0           # cornell is below the BVH cutover
+    # every scene with triangles gets a BVH (scene.BRUTE_FORCE_MAX_TRIS)
+    assert st.bvh_nodes == scene.bvh['lo'].shape[0] > 0
     sb2 = builtin_scenes.cornell_box()
     scene2, st2 = profiling.committed_stats(sb2, force_bvh=True,
                                             leaf_size=8)

@@ -2,12 +2,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.utils import regression
-from yulio_raytracer_tpu.integrator import pathtracer as pt
-from yulio_raytracer_tpu.integrator import debugrenderer
-from yulio_raytracer_tpu.cameras import cameras as cam
-from yulio_raytracer_tpu import renderer
-from yulio_raytracer_tpu.film import accum
+from yulio_raytracer.utils import regression
+from yulio_raytracer.integrator import pathtracer as pt
+from yulio_raytracer.integrator import debugrenderer
+from yulio_raytracer.cameras import cameras as cam
+from yulio_raytracer import renderer
+from yulio_raytracer.film import accum
 
 
 def _camera():
@@ -59,7 +59,7 @@ def test_debug_renderer():
 
 
 def test_spp_sweep_reuses_compiled_graph():
-    """Dynamic spp (PARITY backlog item, VERDICT r3 #7): the stratification
+    """Dynamic spp (PARITY backlog item): the stratification
     grid is traced (patterns.grid_scalars), so an spp sweep reuses the
     compiled chunk instead of paying one compile per value.  Graph count
     is bounded by distinct (spp_per_pass, shapes) pairs: for this sweep

@@ -1,9 +1,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.core import rng, math as vm
-from yulio_raytracer_tpu.sampling import shapesampler as ss
-from yulio_raytracer_tpu.sampling import patterns, distribution
+from yulio_raytracer.core import rng, math as vm
+from yulio_raytracer.sampling import shapesampler as ss
+from yulio_raytracer.sampling import patterns, distribution
 
 
 def _uv(n, seed=0):

@@ -2,10 +2,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.shading import lobes as lb
-from yulio_raytracer_tpu.shading import materials as mt
-from yulio_raytracer_tpu.shading import textures as tx
-from yulio_raytracer_tpu.core import rng
+from yulio_raytracer.shading import lobes as lb
+from yulio_raytracer.shading import materials as mt
+from yulio_raytracer.shading import textures as tx
+from yulio_raytracer.core import rng
 
 # jit the kernels under test: eagerly these graphs are hundreds of
 # individually-dispatched ops (~4 s per call on the 1-core CI box); one

@@ -4,10 +4,10 @@ import time
 import numpy as np
 import pytest
 
-from yulio_raytracer_tpu.film import stereo_strip
-from yulio_raytracer_tpu.io import collada, ecs
-from yulio_raytracer_tpu.scene import SceneBuilder
-from yulio_raytracer_tpu.api import session as rt
+from yulio_raytracer.film import stereo_strip
+from yulio_raytracer.io import collada, ecs
+from yulio_raytracer.scene import SceneBuilder
+from yulio_raytracer.api import session as rt
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'assets', 'scenes')
@@ -60,7 +60,7 @@ def test_collada_load():
     packed_y = np.asarray(scene.geom['v0'])[np.asarray(scene.geom['valid'])]
     assert abs(packed_y[:2, 1]).max() < 1e-5
     # materials: Uber (wall) + ThinDielectric (glassy panel)
-    from yulio_raytracer_tpu.shading import lobes as lb
+    from yulio_raytracer.shading import lobes as lb
     types = np.asarray(scene.materials['lobe_type'])
     assert (types == lb.THIN_DIELECTRIC_TRANSMIT).any()
     assert (types == lb.MICROFACET_DIELECTRIC).any()   # Uber gloss lobe
@@ -73,7 +73,7 @@ def test_billboard_faces_camera():
     sb = SceneBuilder()
     collada.load_dae(DAE, settings, sb)
     bb = [m for m in sb.meshes if m.face_camera][0]
-    from yulio_raytracer_tpu.geometry import mesh as gmesh
+    from yulio_raytracer.geometry import mesh as gmesh
     cam_pos = np.asarray([10.0, 0.0, 2.0])
     xfm = gmesh.billboard_transform(bb.orig_transform, cam_pos, (0, 1, 0))
     moved = bb.transformed(xfm)
@@ -131,8 +131,8 @@ def test_face_retry_is_idempotent(tmp_path, monkeypatch):
     """A cube face that fails transiently retries once and produces the
     same strip as an untroubled run (SURVEY §5: per-face idempotent
     retry unit; the reference restarts at face granularity)."""
-    from yulio_raytracer_tpu.api import output as goutput
-    from yulio_raytracer_tpu import renderer as grenderer
+    from yulio_raytracer.api import output as goutput
+    from yulio_raytracer import renderer as grenderer
 
     settings = ecs.RenderSettings(stereo=True, width=8, height=8,
                                   depth=2, spp=2, gamma=1.0)
@@ -166,7 +166,7 @@ def test_watermark_png_resource_pipeline():
     """The watermark ships as a packaged PNG decoded through the image
     layer (renderer.cpp:48-97's FreeImage-from-memory resource path)."""
     import numpy as np
-    from yulio_raytracer_tpu.film import stereo_strip
+    from yulio_raytracer.film import stereo_strip
     wm = stereo_strip.load_watermark()
     assert wm.shape == (100, 100, 4)
     assert wm.dtype == np.float32
@@ -178,7 +178,7 @@ def test_debug_faces_written_with_reference_naming(tmp_path):
     """-debug writes every cube-face JPEG alongside the strip
     (renderer.cpp:657-660), using the reference per-face naming
     `<scene>_<camera>_<face>_image_<eye>.jpg` (renderer.cpp:587-620)."""
-    from yulio_raytracer_tpu.api import output as goutput
+    from yulio_raytracer.api import output as goutput
 
     settings = ecs.RenderSettings(stereo=True, width=8, height=8,
                                   depth=2, spp=2, gamma=1.0)
@@ -197,7 +197,7 @@ def test_debug_faces_written_with_reference_naming(tmp_path):
 def test_debug_and_no_logging_flags_parse():
     """`-debug` sets the per-face toggle; `--no-logging` clears the
     console log toggle (renderer.cpp:989-991) rather than no-op'ing."""
-    from yulio_raytracer_tpu.utils import logging as glog
+    from yulio_raytracer.utils import logging as glog
 
     settings = ecs.RenderSettings()
     sb = SceneBuilder()

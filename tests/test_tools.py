@@ -57,8 +57,8 @@ Transform { children [
 
     # loads through the XML scene loader
     sys.path.insert(0, REPO)
-    from yulio_raytracer_tpu.io import xml_scene
-    from yulio_raytracer_tpu.scene import SceneBuilder
+    from yulio_raytracer.io import xml_scene
+    from yulio_raytracer.scene import SceneBuilder
     sb = SceneBuilder()
     xml_scene.load_xml(xml, sb)
     assert len(sb.meshes) == 1

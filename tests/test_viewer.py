@@ -5,7 +5,7 @@ import urllib.request
 
 import numpy as np
 
-from yulio_raytracer_tpu.api import viewer as gv
+from yulio_raytracer.api import viewer as gv
 
 
 def _ctl():
@@ -117,8 +117,8 @@ def test_server_roundtrip():
 def test_interactive_loop_renders_and_quits():
     """Drive one frame through the real render path (tiny cornell) and
     stop via the 'q' key event."""
-    from yulio_raytracer_tpu.io import builtin_scenes
-    from yulio_raytracer_tpu.integrator import pathtracer as pt
+    from yulio_raytracer.io import builtin_scenes
+    from yulio_raytracer.integrator import pathtracer as pt
 
     scene = builtin_scenes.cornell_box().commit()
     cam = builtin_scenes.cornell_camera(16, 16)

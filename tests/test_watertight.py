@@ -10,17 +10,19 @@ that an f32 path misses is a leak.  The repo's policy (zero leaks on
 this battery) is the 32-ulp inclusive barycentric test — see
 ops/intersect.py::BARY_EPS.
 
-Covers the three triangle-test implementations: brute MT
-(ops/intersect.py), dense Woop/MXU (intersect_woop), and the packet
-kernel (ops/pallas_traverse.py, interpret mode — the compiled kernel
-runs the same arithmetic; the on-TPU tier has a compiled-equality test).
+Covers the triangle-test implementations: brute MT (ops/intersect.py),
+dense Woop (intersect_woop), the XLA BVH traversal (ops/traverse.py) and
+the GPU traversal kernel (ops/traverse_triton.py, interpret mode — the
+compiled kernel runs the same arithmetic; tests/test_gpu.py and
+chip_smoke.py check it compiled on the card).
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from yulio_raytracer_tpu.geometry import mesh, bvh, primitives
-from yulio_raytracer_tpu.ops import intersect, pallas_traverse as ppt
+from yulio_raytracer.geometry import mesh, bvh, primitives
+from yulio_raytracer.ops import intersect, traverse
+from yulio_raytracer.ops import traverse_triton as ttk
 
 
 def _build(meshes):
@@ -33,10 +35,8 @@ def _build(meshes):
     host = bvh.permute_geom(host, tree.order)
     host['woop'] = mesh.woop_matrices(host['v0'], host['e1'], host['e2'],
                                       host['valid'])
-    nodes = jnp.asarray(ppt.pack_nodes(tree))
-    tris = jnp.asarray(ppt.pack_tris(host['woop'], host))
     geom = {k: jnp.asarray(v) for k, v in host.items()}
-    return nodes, tris, geom
+    return bvh.to_device(tree), geom
 
 
 def _oracle_should_hit(meshes, org, dirn):
@@ -63,25 +63,21 @@ def _oracle_should_hit(meshes, org, dirn):
 
 
 def _leaks(meshes, org, dirn):
-    """(brute, woop, packet) leak counts vs the f64 oracle."""
-    nodes, tris, geom = _build(meshes)
+    """(brute, woop, XLA BVH, GPU kernel) leak counts vs the f64
+    oracle; each path must leak on exactly zero rays."""
+    tree, geom = _build(meshes)
     n = len(org)
-    m = -(-n // ppt.BLOCK) * ppt.BLOCK
-    o = np.zeros((m, 3), np.float32)
-    d = np.tile(np.float32([[0, 0, 1]]), (m, 1))
-    o[:n] = org
-    d[:n] = dirn
-    tn = jnp.zeros((m,))
-    tf = jnp.full((m,), np.inf)
-    hb = intersect.intersect_brute(geom, jnp.asarray(o), jnp.asarray(d),
-                                   tn, tf, block=64)
-    hw = intersect.intersect_woop(geom, jnp.asarray(o), jnp.asarray(d),
-                                  tn, tf, block=64)
-    hp = ppt.intersect_packet(nodes, tris, jnp.asarray(o), jnp.asarray(d),
-                              tn, tf, max_leaf=8, interpret=True)
+    o = jnp.asarray(org, jnp.float32)
+    d = jnp.asarray(dirn, jnp.float32)
+    tn = jnp.zeros((n,))
+    tf = jnp.full((n,), np.inf)
+    hb = intersect.intersect_brute(geom, o, d, tn, tf, block=64)
+    hw = intersect.intersect_woop(geom, o, d, tn, tf, block=64)
+    ht = traverse.intersect_bvh(geom, tree, o, d, tn, tf, leaf_size=8)
+    hk = ttk.intersect_bvh(geom, tree, o, d, tn, tf, interpret=True)
     should = _oracle_should_hit(meshes, org, dirn)
     out = []
-    for h in (hb, hw, hp):
+    for h in (hb, hw, ht, hk):
         miss = ~np.isfinite(np.asarray(h.t)[:n])
         out.append(int((miss & should).sum()))
     return tuple(out)
@@ -94,14 +90,14 @@ def test_quad_shared_diagonal():
     s = np.linspace(0.001, 0.999, 500).astype(np.float32)
     org_v = np.stack([s, s, np.ones_like(s)], -1)
     dir_v = np.tile(np.float32([[0, 0, -1]]), (len(s), 1))
-    assert _leaks([quad], org_v, dir_v) == (0, 0, 0)
+    assert _leaks([quad], org_v, dir_v) == (0, 0, 0, 0)
 
     o2 = np.float32([-0.7, 0.31, 1.3])
     p = np.stack([s, s, np.zeros_like(s)], -1)
     dv = p - o2
     dv /= np.linalg.norm(dv, axis=1, keepdims=True)
     org_o = np.tile(o2, (len(s), 1)).astype(np.float32)
-    assert _leaks([quad], org_o, dv) == (0, 0, 0)
+    assert _leaks([quad], org_o, dv) == (0, 0, 0, 0)
 
 
 def test_vertex_fan_center():
@@ -118,7 +114,7 @@ def test_vertex_fan_center():
     orgs[:, 2] = np.abs(orgs[:, 2]) + 0.5
     dirs = c[None] - orgs
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    assert _leaks(fan, orgs, dirs) == (0, 0, 0)
+    assert _leaks(fan, orgs, dirs) == (0, 0, 0, 0)
 
 
 def _cube():
@@ -148,7 +144,7 @@ def test_closed_cube_no_escape():
     targets = np.asarray(targets, np.float32)
     dirs = targets / np.linalg.norm(targets, axis=1, keepdims=True)
     orgs = np.zeros_like(dirs)
-    assert _leaks([cube], orgs, dirs) == (0, 0, 0)
+    assert _leaks([cube], orgs, dirs) == (0, 0, 0, 0)
 
 
 def test_closed_cube_random_directions():
@@ -156,7 +152,7 @@ def test_closed_cube_random_directions():
     rs = np.random.RandomState(7)
     rd = rs.randn(2048, 3).astype(np.float32)
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
-    assert _leaks([cube], np.zeros_like(rd), rd) == (0, 0, 0)
+    assert _leaks([cube], np.zeros_like(rd), rd) == (0, 0, 0, 0)
 
 
 def test_sliver_grazing():
@@ -175,7 +171,7 @@ def test_sliver_grazing():
     tgt = np.stack([px, oy + 5e-5, oz * 0.5], -1)
     dv = tgt - org
     dv /= np.linalg.norm(dv, axis=1, keepdims=True)
-    assert _leaks(slivers, org, dv) == (0, 0, 0)
+    assert _leaks(slivers, org, dv) == (0, 0, 0, 0)
 
 
 def test_bary_eps_is_32ulp():

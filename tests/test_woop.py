@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from yulio_raytracer_tpu.geometry import mesh, primitives
-from yulio_raytracer_tpu.ops import intersect
+from yulio_raytracer.geometry import mesh, primitives
+from yulio_raytracer.ops import intersect
 
 
 def _scene(seed=0):

@@ -19,8 +19,8 @@ def main(argv=None):
     if len(argv) != 2:
         print("usage: obj2xml.py input.obj output.xml", file=sys.stderr)
         return 1
-    from yulio_raytracer_tpu.io import obj as gobj
-    from yulio_raytracer_tpu.scene import SceneBuilder
+    from yulio_raytracer.io import obj as gobj
+    from yulio_raytracer.scene import SceneBuilder
 
     src, dst = argv
     sb = SceneBuilder()

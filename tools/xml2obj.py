@@ -12,8 +12,8 @@ def main(argv=None):
     if len(argv) != 2:
         print("usage: xml2obj.py input.xml output.obj", file=sys.stderr)
         return 1
-    from yulio_raytracer_tpu.io import xml_scene
-    from yulio_raytracer_tpu.scene import SceneBuilder
+    from yulio_raytracer.io import xml_scene
+    from yulio_raytracer.scene import SceneBuilder
 
     src, dst = argv
     sb = SceneBuilder()
